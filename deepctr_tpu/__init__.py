@@ -1,6 +1,7 @@
-"""deepctr_tpu — a TPU-native CTR-prediction engine.
+"""deepctr_tpu — a CTR-prediction engine in JAX (the package name is
+historical).
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 repo ``Atomu2014/deep-ctr`` (ECIR'16 "Deep Learning over Multi-field
 Categorical Data", arXiv:1601.02376): LR, FM, FNN (FM-initialised DNN) and
 SNN (sampling-based NN with DAE/RBM pretraining) over multi-field one-hot
@@ -18,10 +19,8 @@ session, so citations are to the survey's component inventory, not file:line):
 - C10 sparse-update machinery              -> :mod:`deepctr_tpu.optim.sparse`
                                               + :mod:`deepctr_tpu.ops.scatter`
 
-TPU-native additions mandated by the north star (BASELINE.json:5):
+Additions beyond the reference:
 
-- Pallas kernels (lookup / FM interaction / fused tower / scatter)
-                                           -> :mod:`deepctr_tpu.ops.pallas`
 - mesh parallelism (DP + row-sharded embedding tables with all-to-all)
                                            -> :mod:`deepctr_tpu.parallel`
 - streaming host feature pipeline          -> :mod:`deepctr_tpu.data.pipeline`

@@ -1,6 +1,6 @@
 """CLI entry point: ``python -m deepctr_tpu.cli --config configs/fnn.json``.
 
-The TPU-native replacement of the reference's entry layer (SURVEY.md §1:
+The replacement of the reference's entry layer (SURVEY.md §1:
 ``python <Model>.py`` with constants edited in-file).  One binary, config
 driven, covering the full model family including the two-phase flows
 (FM -> FNN init, DAE/RBM pretrain -> SNN fine-tune) and the sharded
@@ -32,7 +32,7 @@ def build_model(cfg, schema):
     if m.name == "lr":
         return LRModel()
     if m.name == "fm":
-        return FMModel(k=m.k, init_sigma=m.init_sigma, use_pallas=m.use_pallas)
+        return FMModel(k=m.k, init_sigma=m.init_sigma)
     if m.name == "fnn":
         return make_fnn(
             schema,
@@ -40,7 +40,6 @@ def build_model(cfg, schema):
             mlp=MlpSpec(hidden=tuple(m.hidden), activation=m.activation,
                         dropout=m.dropout),
             init_sigma=m.init_sigma,
-            use_pallas=m.use_pallas,
         )
     if m.name == "deepfm":
         return make_deepfm(
@@ -49,7 +48,6 @@ def build_model(cfg, schema):
             mlp=MlpSpec(hidden=tuple(m.hidden), activation=m.activation,
                         dropout=m.dropout),
             init_sigma=m.init_sigma,
-            use_pallas=m.use_pallas,
         )
     if m.name in ("pnn", "ipnn", "opnn"):
         return make_pnn(
@@ -66,7 +64,6 @@ def build_model(cfg, schema):
             mlp=MlpSpec(hidden=tuple(m.hidden), activation=m.activation,
                         dropout=m.dropout),
             init_sigma=m.init_sigma,
-            use_pallas=m.use_pallas,
         )
     raise ValueError(
         f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn)"
@@ -211,26 +208,16 @@ def load_data(cfg):
 def run(cfg) -> dict:
     import jax
 
-    # persistent compilation cache: production-shape scan programs can cost
-    # minutes to compile through remote runtimes; share compiled artifacts
-    # across invocations (harmless no-op where unsupported)
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ.get("DEEPCTR_JAX_CACHE",
-                                         "/tmp/deepctr_jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+    from .utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     if cfg.train.debug_nans:
         jax.config.update("jax_debug_nans", True)
     if cfg.train.distributed:
-        # multi-host: each host runs this same program; the runtime wires
-        # ICI within a slice and DCN across hosts (SURVEY.md §2.4/§5 comm
-        # rows). Single-host invocation is a no-op failure we tolerate.
-        try:
-            jax.distributed.initialize()
-        except Exception as e:  # not in a multi-host env
-            print(f"jax.distributed.initialize() skipped: {e}")
+        # multi-host: each host runs this same program.  A failure here
+        # means the cluster is not what the config says; training on one
+        # process instead would silently change the run, so it raises.
+        jax.distributed.initialize()
 
     from .train import fit, init_state, pretrain_snn
     from .utils.checkpoint import (
@@ -664,7 +651,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(
         prog="deepctr_tpu",
-        description="TPU-native CTR training (LR/FM/FNN/SNN)",
+        description="CTR training and scoring (LR/FM/FNN/SNN/DeepFM/PNN)",
     )
     ap.add_argument("--config", help="JSON config path (defaults applied)")
     ap.add_argument(

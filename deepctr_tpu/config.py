@@ -23,7 +23,6 @@ class ModelConfig:
     dropout: float = 0.5
     hidden1: int = 200                 # SNN bottom layer width
     init_sigma: float = 0.01
-    use_pallas: bool = False           # fused TPU kernels (FM scorer, tower)
     init_from: str | None = None       # checkpoint path: FM table (fnn) or
                                        # DAE/RBM pretrain output (snn)
 
@@ -81,12 +80,12 @@ class TrainConfig:
     lr_decay: float = 1.0     # per-epoch multiplicative LR decay
     scan_steps: int = 8       # minibatch steps fused per dispatch (0 = off)
     prefetch: bool = True
-    # small fields (vocab <= threshold) run as one-hot MXU matmuls with dense
+    # small fields (vocab <= threshold) run as one-hot matmuls with dense
     # per-field gradients instead of gather/scatter rows (ops/split_embed.py);
     # 0 disables the split path entirely
     split_threshold: int = 8192
     # embedding-table storage dtype: "bf16" halves gather + full-table
-    # elementwise HBM traffic (math stays f32; BENCH.md roofline knob)
+    # elementwise device-memory traffic (math stays f32)
     table_dtype: str = "f32"           # f32 | bf16
     # SNN pretraining phase
     pretrain: str | None = None        # dae | rbm | None
@@ -111,7 +110,7 @@ class TrainConfig:
     # debugging / multi-host
     debug_nans: bool = False           # jax_debug_nans (sanitizer row, §5)
     distributed: bool = False          # jax.distributed.initialize() for
-                                       # multi-host DCN meshes (no-op 1-host)
+                                       # multi-host meshes (raises if it fails)
 
 
 @dataclasses.dataclass

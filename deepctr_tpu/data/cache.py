@@ -1,7 +1,7 @@
 """Pre-tokenised binary cache format.
 
 SURVEY.md §7 ("host input pipeline throughput — text parsing will bottleneck
-a v5e; needs pre-tokenized binary cache format"): after parsing a yx text
+the accelerator; needs pre-tokenized binary cache format"): after parsing a yx text
 file once, persist the packed tensors so subsequent epochs/jobs are a single
 mmap-able read instead of a re-parse.
 

@@ -5,7 +5,7 @@ Reference parity: the reference's README points users at
 §1 data-layer row, C1).  That pipeline also emits ``featindex.txt`` — one
 line per one-hot feature, ``<field>:<value><TAB><index>`` — which *defines*
 the global index space the yx files reference.  The reference only ever
-needs ``xdim = max index + 1``; the TPU schema needs the field structure
+needs ``xdim = max index + 1``; this engine's schema needs the field structure
 (per-field embedding gathers, split-embedding planning, packed slots), so
 this importer reconstructs it:
 

@@ -1,7 +1,7 @@
 // Native yx/libsvm parser — the host-side hot path of the input pipeline.
 //
 // The reference's data layer is Python text parsing over a fully-in-RAM
-// dataset (SURVEY.md §1, C3). At TPU speeds host parsing is the projected
+// dataset (SURVEY.md §1, C3). At accelerator speeds host parsing is the projected
 // bottleneck (SURVEY.md §3.5c), so this is a single-pass, allocation-free
 // C++ scanner: bytes in, packed (labels, int32[B,S] global-id slots) out,
 // with per-field slot routing identical to deepctr_tpu.data.parser.pack_ids.

@@ -15,7 +15,7 @@ Two implementations:
 - :func:`parse_yx_lines` — NumPy reference implementation.
 - :func:`parse_yx_bytes_native` — C++ fast path (ctypes, built on demand by
   :mod:`deepctr_tpu.data.native`), for the host-side streaming pipeline where
-  text parsing is the likely bottleneck at TPU speeds (SURVEY.md §3.5c).
+  text parsing is the likely bottleneck at accelerator speeds (SURVEY.md §3.5c).
 
 Both produce identical output (covered by tests/test_data.py).
 """

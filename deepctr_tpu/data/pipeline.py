@@ -1,7 +1,7 @@
 """Host-side streaming input pipeline.
 
 The reference holds the whole dataset in RAM and slices minibatches in the
-Python loop (SURVEY.md §1 data layer, §3.1).  At TPU speeds the host text
+Python loop (SURVEY.md §1 data layer, §3.1).  At accelerator speeds the host text
 parse + transfer is the bottleneck (SURVEY.md §3.5c), so this pipeline:
 
 - iterates packed ``(ids, labels)`` arrays in shuffled minibatches with a

@@ -6,7 +6,7 @@ id/w/h/visibility/format, price bucket, creative, user tags), each with
 exactly one active feature index — except multi-valued fields such as user
 tags, which may have a few.
 
-TPU-native representation (BASELINE.json:5 "sparse one-hot feature encoding
+Device representation (BASELINE.json:5 "sparse one-hot feature encoding
 -> packed per-field ID tensors"): a batch is a dense ``int32[B, S]`` tensor
 of *global* feature ids, where ``S = sum(max_len over fields)`` is a static
 slot count.  Unused slots hold ``schema.pad_id`` which maps to a frozen

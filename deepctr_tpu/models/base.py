@@ -8,7 +8,7 @@ dense head.  We make that structure the framework contract:
     rows   = params["table"][ids]                       # [B, S, D]
     logits = model.apply_rows(dense, rows, mask, ...)   # [B]
 
-This split is what makes sparse training TPU-native: the train step
+This split is what makes sparse training cheap on the device: the train step
 differentiates the loss w.r.t. ``rows`` (a small [B, S, D] tensor) and the
 dense pytree — never w.r.t. the table — and routes the occurrence gradients
 into the deduplicating sparse optimizer (deepctr_tpu/optim/sparse.py).
@@ -102,20 +102,24 @@ def apply_mlp(
     train: bool = False,
     rng: jax.Array | None = None,
 ) -> jax.Array:
-    """[B, in_dim] -> [B] logits."""
+    """[B, in_dim] -> [B] logits.
+
+    Runs under the ``dense_tower`` name scope, which device traces carry
+    in each op's metadata (tools/tower_share.py attributes time by it)."""
     h = x
     n = len(mlp["layers"])
-    for i, layer in enumerate(mlp["layers"]):
-        h = h @ layer["w"] + layer["b"]
-        if i < n - 1:
-            h = spec.act(h)
-            if train and spec.dropout > 0.0:
-                if rng is None:
-                    raise ValueError("dropout requires an rng in train mode")
-                rng = jax.random.fold_in(rng, i)
-                keep = 1.0 - spec.dropout
-                m = jax.random.bernoulli(rng, keep, h.shape)
-                h = jnp.where(m, h / keep, 0.0)
+    with jax.named_scope("dense_tower"):
+        for i, layer in enumerate(mlp["layers"]):
+            h = h @ layer["w"] + layer["b"]
+            if i < n - 1:
+                h = spec.act(h)
+                if train and spec.dropout > 0.0:
+                    if rng is None:
+                        raise ValueError("dropout requires an rng in train mode")
+                    rng = jax.random.fold_in(rng, i)
+                    keep = 1.0 - spec.dropout
+                    m = jax.random.bernoulli(rng, keep, h.shape)
+                    h = jnp.where(m, h / keep, 0.0)
     return h[:, 0]
 
 

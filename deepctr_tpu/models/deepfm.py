@@ -32,7 +32,6 @@ class DeepFMModel:
     k: int = 10
     mlp: MlpSpec = MlpSpec(hidden=(200, 200), activation="relu", dropout=0.5)
     init_sigma: float = 0.01
-    use_pallas: bool = False
     name: str = "deepfm"
 
     def table_shape(self, schema: Schema) -> tuple[int, int]:
@@ -55,36 +54,16 @@ class DeepFMModel:
 
     def apply_rows(self, dense, rows, mask, *, train=False, rng=None):
         # --- FM side (shared rows)
-        if self.use_pallas:
-            from ..ops.pallas import fm_score
-
-            fm_part = fm_score(rows, mask, self.k)
-        else:
-            w = rows[..., 0]
-            v = rows[..., 1:]
-            fm_part = (w * mask).sum(axis=1) + fm_interaction(v, mask)
+        w = rows[..., 0]
+        v = rows[..., 1:]
+        fm_part = (w * mask).sum(axis=1) + fm_interaction(v, mask)
         # --- deep side (same rows, per-field pooled concat)
         x = rows * mask[..., None]
         slot_field = jnp.asarray(self.slot_field, jnp.int32)
         onehot = jax.nn.one_hot(slot_field, self.num_fields, dtype=x.dtype)
         pooled = jnp.einsum("bsd,sf->bfd", x, onehot)
         flat = pooled.reshape(pooled.shape[0], -1)
-        if self.use_pallas:
-            from ..ops.pallas import mlp_tower
-
-            drop = self.mlp.dropout if train else 0.0
-            if drop > 0.0:
-                # in-kernel counter-based dropout, seeded from the step rng
-                # (bounded to 2^24 so the f32 seed carrier is exact)
-                seed = jax.random.randint(rng, (), 0, 1 << 24).astype(
-                    jnp.float32
-                )
-                deep_part = mlp_tower(dense["mlp"], flat, self.mlp.activation,
-                                      None, drop, seed)
-            else:
-                deep_part = mlp_tower(dense["mlp"], flat, self.mlp.activation)
-        else:
-            deep_part = apply_mlp(dense["mlp"], flat, self.mlp, train=train, rng=rng)
+        deep_part = apply_mlp(dense["mlp"], flat, self.mlp, train=train, rng=rng)
         return fm_part + deep_part + dense["bias"]
 
 
@@ -93,7 +72,6 @@ def make_deepfm(
     k: int = 10,
     mlp: MlpSpec | None = None,
     init_sigma: float = 0.01,
-    use_pallas: bool = False,
 ) -> DeepFMModel:
     return DeepFMModel(
         slot_field=tuple(int(f) for f in schema.slot_field),
@@ -101,5 +79,4 @@ def make_deepfm(
         k=k,
         mlp=mlp or MlpSpec(hidden=(200, 200), activation="relu", dropout=0.5),
         init_sigma=init_sigma,
-        use_pallas=use_pallas,
     )

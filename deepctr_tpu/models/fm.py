@@ -27,7 +27,6 @@ from .base import Params
 class FMModel:
     k: int = 10
     init_sigma: float = 0.01
-    use_pallas: bool = False  # fused Pallas scorer (ops/pallas/interaction.py)
     name: str = "fm"
 
     def table_shape(self, schema: Schema) -> tuple[int, int]:
@@ -43,10 +42,6 @@ class FMModel:
     def apply_rows(self, dense, rows, mask, *, train=False, rng=None):
         del train, rng
         # rows: [B, S, 1+k] = (w | v)
-        if self.use_pallas:
-            from ..ops.pallas import fm_score
-
-            return fm_score(rows, mask, self.k) + dense["bias"]
         w = rows[..., 0]            # [B, S]
         v = rows[..., 1:]           # [B, S, k]
         linear = (w * mask).sum(axis=1)

@@ -7,10 +7,10 @@ vectors are concatenated and fed through tanh hidden layers (the paper's
 best "diamond" shape uses 3 hidden layers, dropout regularisation) to a
 sigmoid output, then the whole net is fine-tuned end-to-end.
 
-TPU-native notes: multi-slot fields (user tags) are sum-pooled to one
+Design notes: multi-slot fields (user tags) are sum-pooled to one
 (1+k)-vector per field; the slot->field pooling is a static one-hot
-contraction that XLA fuses into the first matmul. The fused-tower Pallas
-kernel (ops/pallas/mlp.py) provides the MXU fast path for the dense stack.
+contraction that XLA fuses into the first matmul.  The dense stack is plain
+``jax.numpy`` (``apply_mlp``), compiled and fused by XLA.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ class FNNModel:
     k: int = 10
     mlp: MlpSpec = MlpSpec(hidden=(200, 300, 100), activation="tanh", dropout=0.5)
     init_sigma: float = 0.01
-    use_pallas: bool = False  # fused tower kernel (incl. in-kernel dropout)
     name: str = "fnn"
 
     def table_shape(self, schema: Schema) -> tuple[int, int]:
@@ -54,19 +53,6 @@ class FNNModel:
         onehot = jax.nn.one_hot(slot_field, self.num_fields, dtype=x.dtype)
         pooled = jnp.einsum("bsd,sf->bfd", x, onehot)          # [B, F, 1+k]
         flat = pooled.reshape(pooled.shape[0], -1)             # [B, F*(1+k)]
-        if self.use_pallas:
-            from ..ops.pallas import mlp_tower
-
-            drop = self.mlp.dropout if train else 0.0
-            if drop > 0.0:
-                # in-kernel counter-based dropout, seeded from the step rng
-                # (bounded to 2^24 so the f32 seed carrier is exact)
-                seed = jax.random.randint(rng, (), 0, 1 << 24).astype(
-                    jnp.float32
-                )
-                return mlp_tower(dense["mlp"], flat, self.mlp.activation,
-                                 None, drop, seed)
-            return mlp_tower(dense["mlp"], flat, self.mlp.activation)
         return apply_mlp(dense["mlp"], flat, self.mlp, train=train, rng=rng)
 
 
@@ -75,7 +61,6 @@ def make_fnn(
     k: int = 10,
     mlp: MlpSpec | None = None,
     init_sigma: float = 0.01,
-    use_pallas: bool = False,
 ) -> FNNModel:
     return FNNModel(
         slot_field=tuple(int(f) for f in schema.slot_field),
@@ -83,5 +68,4 @@ def make_fnn(
         k=k,
         mlp=mlp or MlpSpec(hidden=(200, 300, 100), activation="tanh", dropout=0.5),
         init_sigma=init_sigma,
-        use_pallas=use_pallas,
     )

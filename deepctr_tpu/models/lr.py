@@ -2,7 +2,7 @@
 
 Reference parity: component C4 (SURVEY.md §2.1, §2.3):
 ``ŷ = σ( Σ_{i∈active} w_i + b )``, SGD/Adagrad with L2, trained on the
-one-hot yx data.  TPU-native form: the weight vector is a ``[V+1, 1]``
+one-hot yx data.  Device form: the weight vector is a ``[V+1, 1]``
 "table" so the shared gather + sparse-update path applies unchanged.
 """
 

@@ -11,8 +11,7 @@ natural extension of the FNN family this framework reproduces (SURVEY.md
            per coordinate pair -> here the standard D-rank compression
            (sum^2 - sum of squares), the same identity FM uses.
 
-TPU-native formulation: both product signals are batched matmuls on the
-MXU — IPNN's Gram matrix via one ``bfd,bgd->bfg`` einsum, OPNN's
+Formulation: both product signals are batched matmuls — IPNN's Gram matrix via one ``bfd,bgd->bfg`` einsum, OPNN's
 compressed outer product via the FM sum-of-squares identity — no pairwise
 Python loops, static shapes throughout.  Table layout matches FM/FNN
 ([V+1, 1+k]), so FM checkpoints can seed PNN embeddings exactly like FNN

@@ -10,7 +10,7 @@ sampled inactive units of the same field (m ∈ {1,2,4} in the paper's
 study).  After pretraining, the supervised phase fine-tunes exactly like
 FNN's top stack.
 
-TPU-native notes: a fully-connected layer over one-hot input IS an
+Design notes: a fully-connected layer over one-hot input IS an
 embedding-bag sum, so the weight matrix lives as a ``[V+1, h1]`` table and
 reuses the gather + sparse-update path.  Negative sampling runs on-device
 with ``jax.random`` (counter-based, reproducible) rather than host NumPy as
@@ -38,7 +38,6 @@ class SNNModel:
     hidden1: int = 200
     mlp: MlpSpec = MlpSpec(hidden=(300, 100), activation="tanh", dropout=0.5)
     init_sigma: float = 0.01
-    use_pallas: bool = False  # fused tower kernel (incl. in-kernel dropout)
     name: str = "snn"
 
     def table_shape(self, schema: Schema) -> tuple[int, int]:
@@ -59,19 +58,6 @@ class SNNModel:
         # rows: [B, S, h1]; bottom layer = sigma(sum of active rows + b1)
         z = (rows * mask[..., None]).sum(axis=1) + dense["b1"]
         h = jax.nn.sigmoid(z)
-        if self.use_pallas:
-            from ..ops.pallas import mlp_tower
-
-            drop = self.mlp.dropout if train else 0.0
-            if drop > 0.0:
-                # in-kernel counter-based dropout, seeded from the step rng
-                # (bounded to 2^24 so the f32 seed carrier is exact)
-                seed = jax.random.randint(rng, (), 0, 1 << 24).astype(
-                    jnp.float32
-                )
-                return mlp_tower(dense["mlp"], h, self.mlp.activation,
-                                 None, drop, seed)
-            return mlp_tower(dense["mlp"], h, self.mlp.activation)
         return apply_mlp(dense["mlp"], h, self.mlp, train=train, rng=rng)
 
 

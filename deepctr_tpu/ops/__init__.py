@@ -1,8 +1,6 @@
-"""Compute ops: jnp reference implementations + Pallas TPU kernels.
-
-Every Pallas kernel in :mod:`deepctr_tpu.ops.pallas` has a pure-jnp oracle
-here, selected via config flag; tests assert bit-level (or tolerance-level)
-agreement between the two (SURVEY.md §4).
+"""Compute ops in plain ``jax.numpy``, each with a brute-force or NumPy
+oracle in the tests (SURVEY.md §4); XLA compiles and fuses them for the
+device.
 """
 
 from .interaction import fm_interaction, fm_interaction_bruteforce

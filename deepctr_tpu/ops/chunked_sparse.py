@@ -1,10 +1,7 @@
-"""VMEM-chunked sparse gather/densify for giant embedding tables.
+"""Chunked sparse gather/densify for giant embedding tables.
 
-Measured on a v5e (tools/scatter_lab.py, git history): XLA's gather and
-scatter-add are latency-bound per row, and the per-row cost cliffs with the
-TARGET array size — ~6-8 ns/row when the target fits VMEM (<= ~5 MB),
-~45-60 ns/row against a 41 MB table.  The fix is pure dataflow: with ids
-SORTED, the occurrences that touch vocab chunk ``c`` form one contiguous
+An execution strategy for gather and scatter-add whose per-row cost grows
+with the TARGET array size: keep each target small.  With ids SORTED, the occurrences that touch vocab chunk ``c`` form one contiguous
 range ``[bounds[c], bounds[c+1])``, so a giant-table gather/scatter
 decomposes into per-chunk small-array ops:
 
@@ -30,14 +27,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# target-chunk rows: [CHUNK, D] f32 at D=11 is ~1.4 MB — measured well on
-# the fast side of the size cliff (6.7 ns/row at 32k rows, 14 ns at 131k,
-# 47 ns at 524k; tools/scatter_lab.py + git history)
+# target-chunk rows: [CHUNK, D] f32 at D=11 is ~1.4 MB
 DEFAULT_CHUNK = 32_768
 # occurrence-window rows per chunk; overflow falls back exactly.  24.6k
 # occurrences over 29 chunks average ~850/chunk -> 4096 is ~4.8x headroom
 DEFAULT_WINDOW = 4096
-# only decompose when the table is meaningfully past the cliff
+# only decompose tables of at least this many rows
 MIN_ROWS_TO_CHUNK = 262_144
 
 

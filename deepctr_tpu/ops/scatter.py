@@ -2,7 +2,7 @@
 
 Reference parity: component C10 (SURVEY.md §2.1) — the reference relies on
 Theano ``inc_subtensor`` indexed updates so SGD touches only the embedding
-rows present in the batch.  The TPU-native redesign (BASELINE.json:5
+rows present in the batch.  The redesign (BASELINE.json:5
 "SGD/Adagrad per-row sparse updates -> segment-sum gradient scatter into
 table shards") must additionally *deduplicate* repeated ids before the
 optimizer math: Adagrad's accumulator update is ``acc += (sum_i g_i)^2`` per
@@ -45,7 +45,7 @@ def _segmented_inclusive_sum(starts: jax.Array, values: jax.Array) -> jax.Array:
 
     ``starts[i]`` is True where a new segment begins.  Implemented with the
     classic (flag, value) associative operator so it lowers to a log-depth
-    ``lax.associative_scan`` — no sequential loop, TPU-friendly.
+    ``lax.associative_scan`` — no sequential loop.
     """
     flags = starts.astype(values.dtype)
     if values.ndim > 1:
@@ -96,7 +96,7 @@ def scatter_add_dedup(
     """``table[ids] += rows`` with duplicate ids summed first.
 
     Equivalent to a plain scatter-add (addition is associative) but performs
-    the duplicate combination in vector registers instead of HBM atomics,
+    the duplicate combination in registers instead of device-memory atomics,
     and returns sorted indices to XLA (``indices_are_sorted=True``) so the
     scatter lowers to the fast sorted path.
     """

@@ -1,18 +1,15 @@
 """Split embedding execution: one-hot-matmul for small fields, gather for big.
 
-Motivation (measured on a v5e, see BENCH.md / ARCHITECTURE.md §3): XLA's
-gather and scatter cost ~20ns and ~60ns **per row** regardless of the target
-table size — they are latency/serialisation bound, not bandwidth bound.  A
-CTR schema is dominated by *small-vocabulary* fields (weekday=8, hour=25,
-city=400, ... — 15 of 18 iPinYou slots) whose embedding rows can instead be
-produced as ``onehot(ids) @ subtable`` — a few hundred MFLOPs, effectively
-free on the MXU — whose autodiff backward is the *dense* per-field gradient
-``onehotᵀ @ g`` (the exact duplicate-summed gradient the sparse optimizer
-needs) with **zero scatter rows**.  Only the few huge fields (domain, url,
-slotid at iPinYou scale) keep the take + scatter-add path.
-
-Measured effect at full-iPinYou scale, batch 8192: forward gather 3.4ms →
-0.6ms, gradient accumulation 8.0ms → 2.4ms.
+Motivation: gather and scatter-add cost is per row, and scatter-add must
+combine duplicate ids.  A CTR schema is dominated by *small-vocabulary*
+fields (weekday=8, hour=25, city=400, ... — 15 of 18 iPinYou slots) whose
+embedding rows can instead be produced as ``onehot(ids) @ subtable`` — a few
+hundred MFLOPs of matmul — whose autodiff backward is the *dense* per-field
+gradient ``onehotᵀ @ g`` (the exact duplicate-summed gradient the sparse
+optimizer needs) with **zero scatter rows**.  Only the few huge fields
+(domain, url, slotid at iPinYou scale) keep the take + scatter-add path.
+The path was chosen on the previous accelerator; whether it pays on the GPU
+in every cell is still to be measured.
 
 Semantics are identical to the all-scatter path:
 
@@ -23,8 +20,8 @@ Semantics are identical to the all-scatter path:
   (same as the frozen pad row) and no gradient flows to any table row.
 
 Reference parity: this replaces the Theano ``inc_subtensor`` sparse-update
-machinery (SURVEY.md C10) for small fields with an MXU-native formulation;
-the training math is unchanged.
+machinery (SURVEY.md C10) for small fields with a matmul formulation; the
+training math is unchanged.
 """
 
 from __future__ import annotations
@@ -37,18 +34,17 @@ import numpy as np
 
 from ..data.schema import Schema
 
-# Default vocab-size cutoff between the one-hot-matmul path and take+scatter.
-# Measured crossover on v5e: a slot costs ~0.5ms via XLA scatter regardless of
-# vocab, vs ~vocab*28ns via padded MXU matmul -> breakeven near 16k; 8192 is a
-# conservative default that keeps the one-hot temporaries modest.
+# Default vocab-size cutoff between the one-hot-matmul path and take+scatter:
+# 8192 keeps the one-hot temporaries modest (see MEMORY below).  Where the
+# two paths cross on the GPU is still to be measured.
 #
-# Precision of the one-hot selection matmuls.  HIGHEST (6-pass f32 MXU
-# emulation) keeps the split path trajectory-equal to the all-scatter path
-# (the selection itself is exact at any precision; the backward's summed
-# per-field gradient is where accumulation precision matters — MXU
-# accumulation is f32 even at DEFAULT, so relaxing costs only the bf16
-# rounding of the operands, ~2^-8 relative).  Module-level so benchmarks
-# and configs can trade ~1e-3 gradient rounding for MXU throughput.
+# Precision of the one-hot selection matmuls.  HIGHEST (full f32; on the GPU
+# this runs outside the tensor cores) keeps the split path trajectory-equal
+# to the all-scatter path: the selection itself is exact at any precision,
+# but the backward's summed per-field gradient is where precision matters —
+# a lower precision rounds the operands (TF32 keeps a 10-bit mantissa, bf16
+# 7 bits).  Module-level so benchmarks can trade that gradient rounding for
+# matmul throughput.
 ONEHOT_PRECISION = jax.lax.Precision.HIGHEST
 
 # MEMORY: each small slot materialises a [B, L, vocab] f32 one-hot temporary
@@ -56,7 +52,7 @@ ONEHOT_PRECISION = jax.lax.Precision.HIGHEST
 # vocab-8192 single-slot field is ~256 MB.  iPinYou-shaped schemas (small
 # vocabs <= 7k spread over many fields) are safe; for schemas with several
 # near-threshold fields lower ``threshold`` (CLI: ``train.split_threshold``)
-# so that ``batch * max_len * vocab * 4`` stays within your HBM headroom.
+# so that ``batch * max_len * vocab * 4`` stays within device-memory headroom.
 DEFAULT_THRESHOLD = 8192
 
 
@@ -144,12 +140,11 @@ def gather_big_rows_sorted(
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Sorted-index gather for the big slots: sort ids, take, un-permute.
 
-    Measured on a v5e ([920k, 11] table, 24.6k rows/batch): a gather whose
-    indices are the output of a sort runs at 15.2 ns/row vs 21.9 ns/row for
-    the direct ``jnp.take`` — XLA emits its faster sorted-sequential gather
-    path — and the two auxiliary permutation gathers operate on the small
-    [N, D] occurrence array, which is effectively free.  The id/payload sort
-    itself is a single variadic ``lax.sort`` (~free at 24k elements).
+    Sorting the indices lets the table gather (and the optimizer's
+    scatter-add) run over ascending rows; the two auxiliary permutation
+    gathers operate on the small [N, D] occurrence array, and the id/payload
+    sort is a single variadic ``lax.sort``.  Whether the sort pays for
+    itself on the GPU is still to be measured.
 
     Returns ``(rows [B, nb, D], sorted_ids [B*nb], order [B*nb])``: the
     training step scatters the big-field row gradients with
@@ -192,18 +187,21 @@ def assemble_rows(
     and so never match.
     """
     parts = []
-    for i, (f, sub) in enumerate(zip(plan.small, small_tables)):
-        sl = ids[:, f.slot_start : f.slot_start + f.slot_len]
-        local = sl - f.offset  # [B, L]
-        id_vec = (
-            jnp.arange(f.vocab)
-            if small_id_vectors is None
-            else small_id_vectors[i]
-        )
-        oh = (local[..., None] == id_vec[None, None, :]).astype(sub.dtype)
-        parts.append(
-            jnp.einsum("blv,vd->bld", oh, sub, precision=ONEHOT_PRECISION)
-        )
+    # the scope names these ops (and their backward) in the compiled HLO's
+    # metadata, which tools/tower_share.py groups trace events by
+    with jax.named_scope("onehot_lookup"):
+        for i, (f, sub) in enumerate(zip(plan.small, small_tables)):
+            sl = ids[:, f.slot_start : f.slot_start + f.slot_len]
+            local = sl - f.offset  # [B, L]
+            id_vec = (
+                jnp.arange(f.vocab)
+                if small_id_vectors is None
+                else small_id_vectors[i]
+            )
+            oh = (local[..., None] == id_vec[None, None, :]).astype(sub.dtype)
+            parts.append(
+                jnp.einsum("blv,vd->bld", oh, sub, precision=ONEHOT_PRECISION)
+            )
     parts.append(big_rows)
     rows = jnp.concatenate(parts, axis=1)
     perm = jnp.asarray(plan.perm_to_slots)
@@ -218,8 +216,8 @@ def grads_to_patches(
     Fields occupying CONTIGUOUS table ranges are concatenated into one span
     patch: an iPinYou-shaped schema has its 13 small fields in two contiguous
     runs (either side of the domain/url/slotid block), so the optimizer
-    applies 2 slice updates instead of 13 — the concat is a few-KB copy, the
-    avoided per-field dynamic-slice round trips are ~0.1 ms/step on a v5e.
+    applies 2 slice updates instead of 13 — the concat is a few-KB copy that
+    saves 11 per-field dynamic-slice round trips.
     """
     spans: list[tuple[int, list[jax.Array], int]] = []  # (offset, grads, rows)
     for f, g in zip(plan.small, small_table_grads):

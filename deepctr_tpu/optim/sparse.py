@@ -11,10 +11,9 @@ Two execution strategies, chosen per table size (``mode="auto"``):
 - **dense** (tables that fit a [V, D] scratch, i.e. almost everything up to
   multi-million-row vocabs): one XLA scatter-add builds the per-row summed
   gradient G, then the update is a full-table elementwise op.  G is zero on
-  untouched rows so they are bit-identical unchanged; HBM cost is a few
-  table-sized streams, which profiling on a v5e shows is ~10x faster than
-  the sort-based path at iPinYou scale.
-- **sorted** (HBM-bound giant tables, e.g. Criteo-scale hash spaces where a
+  untouched rows so they are bit-identical unchanged; the cost is a few
+  table-sized memory streams.
+- **sorted** (giant tables, e.g. Criteo-scale hash spaces where a
   [V, D] f32 scratch is >buffer budget): stable-sort occurrence ids and run
   a segmented inclusive scan (deepctr_tpu.ops.scatter) so each distinct
   id's total lands on its last occurrence; cost is O(M log M), independent
@@ -113,10 +112,9 @@ class SparseAdagrad:
     eps: float = 1e-6
     initial_accumulator: float = 0.0
     mode: str = "auto"  # auto | dense | sorted
-    # dtype of the dense-mode gradient scratch G (roofline lab knob): bf16
-    # halves the scatter's write stream and the elementwise's read of G, at
-    # the cost of bf16 rounding in the duplicate-id accumulation (measured
-    # in BENCH.md roofline; default keeps exact f32 accumulation)
+    # dtype of the dense-mode gradient scratch G: bf16 halves the scatter's
+    # write stream and the elementwise's read of G, at the cost of bf16
+    # rounding in the duplicate-id accumulation (default keeps exact f32)
     scratch_dtype: str = "f32"  # f32 | bf16
 
     def init(self, table: jax.Array) -> SparseAdagradState:
@@ -140,7 +138,7 @@ class SparseAdagrad:
             # duplicate-summed gradient and the accumulator math must not
             # round (acc increments sit far below bf16 ulp); only the table
             # write rounds (one cast, fused into the same elementwise loop).
-            # scratch_dtype="bf16" is the measured roofline lab variant.
+            # scratch_dtype="bf16" is the lower-traffic variant.
             sdt = jnp.bfloat16 if self.scratch_dtype == "bf16" else jnp.float32
             g = jnp.zeros(table.shape, sdt).at[ids].add(
                 rows.astype(sdt), indices_are_sorted=ids_sorted

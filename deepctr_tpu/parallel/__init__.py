@@ -1,7 +1,7 @@
 """Parallelism: device meshes, data-parallel steps, row-sharded tables.
 
 Reference parity note (SURVEY.md §2.4): the reference has NO parallelism —
-this package is the capability->TPU mapping mandated by the north star.
+this package maps the north star's parallel capabilities onto a device mesh.
 TP/PP/CP/EP/sequence parallelism are explicit non-goals (no sequence axis
 exists in fixed-field CTR data); the scaling axes are batch (DP) and
 embedding-table rows (row sharding + all-to-all).
@@ -10,7 +10,7 @@ embedding-table rows (row sharding + all-to-all).
 from .hostckpt import load_host_shards, save_host_shards
 from .mesh import (DATA_AXIS, assemble_process_local, data_sharding,
                    make_data_mesh, replicated, shard_batch_arrays)
-from .comm import CommVolume, comm_volume, dense_param_bytes, exchange_capacity, predict_scaling
+from .comm import CommVolume, comm_volume, dense_param_bytes, exchange_capacity
 from .dp import make_dp_train_step, replicate_state
 from .sharded import (
     ShardedTrainState,
@@ -50,5 +50,4 @@ __all__ = [
     "comm_volume",
     "dense_param_bytes",
     "exchange_capacity",
-    "predict_scaling",
 ]

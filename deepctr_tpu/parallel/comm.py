@@ -1,13 +1,11 @@
-"""Per-step communication-volume accounting + ICI/DCN scaling model.
+"""Per-step communication-volume accounting of the sharded step.
 
-BASELINE.json:5 sets a >=85% examples/s scaling-efficiency target for 1->2
-hosts, but this environment has ONE chip — so the only honest treatment is
-quantitative: account every byte the sharded step exchanges (the volumes are
-closed-form in the step's static shapes) and combine them with interconnect
-bandwidths into a predicted efficiency.  tools/scaling_report.py renders
-SCALING.md from these functions; tests/test_comm.py pins the formulas to the
-actual arrays the step exchanges (same capacity formula — imported by
-parallel/sharded.py, so the two cannot drift).
+Every byte the sharded step exchanges is closed-form in the step's static
+shapes; this module accounts them per collective, device-agnostically.
+tools/scaling_report.py renders SCALING.md from these functions and checks
+them against the compiled program; tests/test_comm.py pins the formulas
+(same capacity formula — imported by parallel/sharded.py, so the two cannot
+drift).  Link times are not modelled here: they come from a measured trace.
 
 Exchange inventory of one sharded train step (parallel/sharded.py):
 
@@ -174,83 +172,4 @@ def dense_param_bytes(model, schema) -> int:
     return sum(
         int(np.prod(x.shape)) * x.dtype.itemsize
         for x in jax.tree_util.tree_leaves(params["dense"])
-    )
-
-
-@dataclasses.dataclass(frozen=True)
-class ScalingPoint:
-    """Predicted weak-scaling efficiency at one topology point."""
-
-    n_devices: int
-    n_hosts: int
-    wire_bytes: int          # per device per step (ICI view)
-    dcn_bytes_per_host: int  # per host per step crossing DCN
-    t_comp_ms: float
-    t_ici_ms: float
-    t_dcn_ms: float
-    efficiency_no_overlap: float   # t_comp / (t_comp + t_comm)
-    efficiency_overlapped: float   # t_comp / max(t_comp, t_comm)
-
-
-def predict_scaling(
-    vol: CommVolume,
-    t_comp_ms: float,
-    n_hosts: int = 1,
-    chips_per_host: int | None = None,
-    ici_bytes_per_s: float = 1600e9 / 8 * 0.8,
-    dcn_bytes_per_s_per_host: float = 200e9 / 8 * 0.8,
-) -> ScalingPoint:
-    """Combine volumes with link bandwidths into predicted efficiency.
-
-    Defaults (stated assumptions, parameterise to taste):
-    - ICI: Cloud TPU v5e spec lists 1600 Gbps aggregate interchip bandwidth
-      per chip -> 200 GB/s, derated to 80% achievable.
-    - DCN: one 200 Gbps NIC per host shared by its chips -> 25 GB/s,
-      derated to 80%.  Cross-host traffic of collective ops transits the
-      NIC once per step in each direction; we charge the full per-host
-      cross-section.
-
-    Weak scaling: ``t_comp_ms`` is the measured single-chip step time at the
-    same per-device batch (compute per chip is constant as devices grow; the
-    exchange volumes grow as accounted in ``vol``).
-
-    ``efficiency_no_overlap`` serializes comm after compute (pessimistic);
-    ``efficiency_overlapped`` assumes perfect overlap (optimistic).  Real
-    systems land between; XLA overlaps collectives with independent compute
-    where the schedule allows.
-    """
-    n = vol.n_devices
-    chips_per_host = chips_per_host or _cdiv(n, n_hosts)
-    t_ici = vol.total_wire / ici_bytes_per_s * 1e3
-
-    # DCN accounting is per-collective:
-    # - all_to_all is per-PAIR traffic: each device's payload to the
-    #   (n - chips_per_host) remote peers transits the NIC; the host carries
-    #   chips_per_host devices' worth.  Irreducible — ids really must reach
-    #   their owner shard.
-    # - psum / all_gather are HIERARCHICAL over a host x chip mesh (XLA
-    #   reduces intra-host over ICI first): DCN carries ~2x / ~1x the
-    #   operand per HOST per step, independent of chips_per_host.
-    if n_hosts > 1 and n > chips_per_host:
-        remote_frac = (n - chips_per_host) / n  # all_to_all remote share
-        a2a_payload = vol.ids_a2a + vol.rows_a2a_fwd + vol.rows_a2a_bwd
-        dcn_a2a = a2a_payload * remote_frac * chips_per_host
-        dcn_psum = 2 * (vol.small_psum + vol.dense_psum)
-        dcn_ag = vol.small_allgather
-        dcn_per_host = int(dcn_a2a + dcn_psum + dcn_ag)
-        t_dcn = dcn_per_host / dcn_bytes_per_s_per_host * 1e3
-    else:
-        dcn_per_host = 0
-        t_dcn = 0.0
-    t_comm = t_ici + t_dcn
-    return ScalingPoint(
-        n_devices=n,
-        n_hosts=n_hosts,
-        wire_bytes=vol.total_wire,
-        dcn_bytes_per_host=dcn_per_host,
-        t_comp_ms=t_comp_ms,
-        t_ici_ms=t_ici,
-        t_dcn_ms=t_dcn,
-        efficiency_no_overlap=t_comp_ms / (t_comp_ms + t_comm),
-        efficiency_overlapped=t_comp_ms / max(t_comp_ms, t_comm),
     )

@@ -13,8 +13,8 @@ global arrays are reassembled with
 either direction.
 
 Restart contract: the restore mesh must have the same shape and the same
-process -> device assignment as the save mesh (the standard TPU restart
-invariant: a rescheduled job gets the same slice topology).  Shards are
+process -> device assignment as the save mesh (a rescheduled job gets the
+same topology).  Shards are
 keyed by their full per-dim global offsets, so device *ordering* within a
 process may differ as long as the assignment does not, and leaves
 partitioned along any axis (or replicated across a second mesh axis)

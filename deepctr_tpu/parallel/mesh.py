@@ -1,16 +1,18 @@
 """Device mesh construction and sharding helpers.
 
 The reference is single-process/single-device (SURVEY.md §2.4); every
-parallel concept here is the TPU-native capability mapping mandated by
-BASELINE.json:5: a 1-D ``data`` mesh axis over all chips, with
+parallel concept here maps a capability of BASELINE.json:5 onto a 1-D
+``data`` mesh axis over all devices, with
 
 - dense tower params REPLICATED, gradients synced by ``psum`` (pure DP);
 - embedding tables ROW-SHARDED over the same axis (DLRM-style model
   parallelism for the memory-heavy state), lookups/updates exchanged with
   ``all_to_all`` — see :mod:`deepctr_tpu.parallel.sharded`.
 
-Multi-host: ``jax.distributed.initialize()`` before mesh creation makes the
-same code span hosts (ICI within a slice, DCN across); nothing else changes.
+The mesh follows the algorithm alone: the cards of one host are joined all
+to all (NVLink), so no axis is shaped for a physical topology.  Multi-host:
+``jax.distributed.initialize()`` before mesh creation makes the same code
+span hosts; nothing else changes.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Row-sharded embedding tables with all-to-all ID/embedding exchange.
 
-The TPU-native replacement for the reference's single ``theano.shared``
+The replacement for the reference's single ``theano.shared``
 embedding matrix (SURVEY.md §2.4, BASELINE.json:5): embedding rows are
 sharded across the mesh's ``data`` axis with a deterministic modulo hash
 (``owner = id % N``), while the dense tower runs data-parallel on the same
@@ -265,7 +265,7 @@ def init_sharded_state(
 ) -> ShardedTrainState:
     """Initialise params and place them: table row-sharded, dense replicated.
 
-    ``table_dtype="bf16"`` stores the shards in bfloat16 (same HBM/wire knob
+    ``table_dtype="bf16"`` stores the shards in bfloat16 (same memory/wire knob
     as train.step.init_state: gathers, the all_gathered small subtables and
     the full-shard Adagrad elementwise stream half the bytes; all math stays
     f32 — the step casts rows after the exchange/gather)."""

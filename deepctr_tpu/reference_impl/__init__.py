@@ -9,7 +9,7 @@ the measured throughput baseline for bench.py (the reference published no
 perf numbers; BASELINE.json:13 "published": {}).
 
 It deliberately mirrors the REFERENCE design (host-driven per-batch loop,
-dense NumPy math), not the TPU design, so comparisons are meaningful.
+dense NumPy math), not this engine's design, so comparisons are meaningful.
 """
 
 from .numpy_ref import NumpyFM, NumpyFNN, NumpyLR, train_numpy_model

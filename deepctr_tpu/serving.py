@@ -28,10 +28,9 @@ class Scorer:
     - ``"int8"``: ~2.6-2.75x smaller (D + pad + 4 scale bytes per row vs
       4D f32), row-wise absmax scales; each row (D int8
       payload + pad + 4 scale bytes) is bitcast into int32 WORDS so the
-      big-field gather moves 32-bit lanes — the fastest serving mode
-      measured (34M ex/s vs f32's 20M, tools/serving_lab.py), not just the
-      smallest.  Unpack happens in-register after the gather; the scorer's
-      math stays f32.
+      big-field gather moves 32-bit words and the row scale rides in the
+      same gather.  Unpack happens in-register after the gather; the
+      scorer's math stays f32.
     """
 
     model: Model
@@ -48,9 +47,8 @@ class Scorer:
         pad_id = self.schema.pad_id
         model = self.model
 
-        # split lookup: small fields as one-hot MXU matmuls (~6x faster
-        # forward at full-iPinYou vocab, see ops/split_embed.py) — shared by
-        # every quantization mode
+        # split lookup: small fields as one-hot matmuls (ops/split_embed.py)
+        # — shared by every quantization mode
         from .ops.split_embed import (
             assemble_rows,
             gather_big_rows_sorted,
@@ -61,14 +59,13 @@ class Scorer:
         split = make_split_plan(self.schema)
 
         if self.quantize == "int8":
-            # Word-packed layout (the fastest mode measured, not merely the
-            # smallest: 0.24 ms/batch vs f32's 0.41, tools/serving_lab.py).
-            # Each row = D int8 payload + zero pad + 4 bytes of the bitcast
-            # f32 row scale, padded to a multiple of 4 bytes and bitcast to
-            # int32 WORDS, so the big-field gather moves full 32-bit lanes
-            # (XLA's sub-32-bit table gather takes a slow byte-access path)
-            # and the row scale rides in the SAME gather.  Unpacking is
-            # in-register arithmetic after the gather.
+            # Word-packed layout: each row = D int8 payload + zero pad + 4
+            # bytes of the bitcast f32 row scale, padded to a multiple of 4
+            # bytes and bitcast to int32 WORDS, so the big-field gather
+            # moves full 32-bit words and the row scale rides in the SAME
+            # gather.  Unpacking is in-register arithmetic after the
+            # gather.  Whether this beats a plain int8 gather on the GPU is
+            # still to be measured.
             t = jnp.asarray(self.table, jnp.float32)
             d = t.shape[1]
             pad = -(d + 4) % 4
@@ -116,8 +113,8 @@ class Scorer:
             @jax.jit
             def fwd(table, dense, ids):
                 if split.has_small:
-                    # cast-early (measured +25% for bf16, serving_lab.py):
-                    # cast the small subtables once per call and the gathered
+                    # cast-early: cast the small subtables once per call and
+                    # the gathered
                     # big rows on the fly, so the one-hot einsums and the
                     # tower see the f32-mode graph (no-op in f32 mode)
                     small = [

@@ -58,7 +58,7 @@ def init_state(
     table_dtype: str = "f32",
 ) -> TrainState:
     """``table_dtype="bf16"`` stores the embedding table in bfloat16 (the
-    HBM-bandwidth knob, BENCH.md roofline): gathers and the full-table
+    device-memory bandwidth knob): gathers and the full-table
     Adagrad elementwise stream half the bytes; all math stays f32 (rows are
     cast after the gather, updates are computed f32 and rounded on write;
     the Adagrad accumulator stays f32 — its increments are far below bf16
@@ -95,8 +95,7 @@ def make_train_step(
     ``split`` (ops/split_embed.py) routes small-vocabulary fields through a
     differentiable one-hot matmul — their gradients arrive as dense per-field
     patches with zero scatter rows — while big fields keep take + scatter.
-    Training math is identical either way (property-tested); on a v5e at
-    full-iPinYou scale the split path is ~3x faster end to end.
+    Training math is identical either way (property-tested).
     """
     pad_id = schema.pad_id
 
@@ -200,12 +199,11 @@ def make_scan_train_step(
     ``scan_step(state, ids [T,B,S], labels [T,B], weights [T,B])``
     -> ``(state, losses [T])``.
 
-    TPU-native rationale: the reference drives one compiled call per
-    minibatch from Python (SURVEY.md §3.1).  Through a remote/tunneled
-    runtime each dispatch costs milliseconds of host latency; scanning T
-    steps inside one XLA program makes dispatch cost amortise to zero and
-    is also what the wall-clock benchmark must measure (device time, not
-    queue behaviour).
+    Rationale: the reference drives one compiled call per minibatch from
+    Python (SURVEY.md §3.1).  Scanning T steps inside one XLA program
+    amortises the per-dispatch host cost over T steps.  That this cost
+    matters on a locally attached GPU (and so the default T=8 of
+    ``train.scan_steps``) is a claim still to be measured against a trace.
     """
     inner = make_train_step(
         model, schema, sparse_opt, dense_opt, l2=l2, jit=False, split=split

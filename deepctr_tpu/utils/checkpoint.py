@@ -161,7 +161,7 @@ def init_fnn_from_fm(fnn_params: dict, fm_table: np.ndarray | jax.Array) -> dict
     """Replace FNN's embedding table with the trained FM (w|v) rows.
 
     Table layouts match by construction ([V+1, 1+k], FM row = (w_i, v_i)),
-    so the handoff is a copy — the TPU-native equivalent of the reference's
+    so the handoff is a copy — the equivalent of the reference's
     pickle-and-reload (SURVEY.md §3.2, §3.1 "[pretrain input] load FM
     weights (w_i, v_i) trained by FM.py").
     """

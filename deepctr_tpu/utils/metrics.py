@@ -1,8 +1,7 @@
 """Evaluation metrics: AUC (exact + streaming histogram), logloss, RMSE.
 
 Reference parity: component C9 (SURVEY.md §2.1) — the reference evaluates
-per-epoch AUC via sklearn plus hand-rolled logloss/RMSE.  TPU-native
-addition (SURVEY.md §5 observability row): a streaming, on-device AUC from
+per-epoch AUC via sklearn plus hand-rolled logloss/RMSE.  Addition (SURVEY.md §5 observability row): a streaming, on-device AUC from
 fixed-bin score histograms, so evaluation over a sharded dataset is one
 ``psum`` of two [num_bins] vectors instead of gathering every score to host.
 """

@@ -29,7 +29,6 @@ ARTIFACTS = {
     "PARITY.md": "tools/parity_report.py",
     "SCALING.md": "tools/scaling_report.py",
     "RESULTS.md": "tools/reproduce.py",
-    "BENCH.md": "tools/bench_suite.py",
 }
 
 
@@ -91,82 +90,3 @@ def test_scaling_hlo_validation_rows_all_match():
         text = f.read()
     assert "Validation against the compiled program" in text
     assert "| NO |" not in text, "a compiled-HLO validation row mismatched"
-
-
-def _bench_json():
-    import json
-
-    with open(os.path.join(REPO_ROOT, "BENCH.json")) as f:
-        return json.load(f)
-
-
-def test_bench_md_table_matches_bench_json():
-    """BENCH.md's generated table must equal BENCH.json key for key —
-    the file with the project's evidence-drift history (VERDICT r4
-    Missing #5) is now under the same mechanical regime as PARITY.md."""
-    results = _bench_json()
-    with open(os.path.join(REPO_ROOT, "BENCH.md")) as f:
-        rows = parse_md_table(f.read())
-    got = {r["metric"]: r["value"] for r in rows}
-    assert set(got) == set(results), (
-        set(results) ^ set(got), "BENCH.md table out of sync — rerun "
-        "tools/bench_suite.py (any section; the table regenerates whole)")
-    for k, v in results.items():
-        want = f"{v:,.0f}" if isinstance(v, (int, float)) else str(v)
-        assert got[k] == want, (k, got[k], want)
-
-
-def test_bench_md_headline_prose_quotes_bench_json():
-    """The round-4 median-of-5 table in the prose must quote the exact
-    BENCH.json values it cites, and the production-config claim must match
-    the measured verdict key."""
-    results = _bench_json()
-    with open(os.path.join(REPO_ROOT, "BENCH.md")) as f:
-        text = " ".join(f.read().split())  # normalize line wraps
-    for cfg in ("f32", "bf16table", "bf16table_bf16scratch"):
-        med = f"{results[f'headline_median/{cfg}']:,.0f}"
-        sig = f"{results[f'headline_sigma/{cfg}']:,.0f}"
-        assert med in text and sig in text, (
-            f"headline {cfg} median/sigma ({med}/{sig}) not quoted in "
-            "BENCH.md prose — the cited numbers drifted from BENCH.json")
-    verdict = results["headline_production_config"]
-    human = {"bf16table": "bf16 table only",
-             "bf16table_bf16scratch": "bf16 table + bf16 scratch"}[verdict]
-    assert human in text, (
-        f"BENCH.md prose does not state the measured production config "
-        f"({human})")
-
-
-def test_serving_quality_within_parity_band():
-    """Full-vocab serving quality at the parity standard (VERDICT r4 Weak
-    #4): the shipped bf16/int8 scorer modes must sit within |ΔAUC| <= 0.002
-    of f32 on the planted-teacher eval (bench_suite --sections
-    servingquality writes the keys)."""
-    results = _bench_json()
-    assert "serving_auc/f32" in results, (
-        "serving-quality keys missing — run tools/bench_suite.py "
-        "--sections servingquality")
-    assert results["serving_auc/f32"] > 0.70  # trained model, not noise
-    for mode in ("bf16", "int8"):
-        d = results[f"serving_auc_delta/{mode}"]
-        assert abs(d) <= 0.002, (mode, d)
-
-
-def test_bench_production_config_matches_measured_verdict():
-    """bench.py's storage knobs must match the config the median-repeats
-    protocol selected (BENCH.json headline_production_config) — the
-    round-3 failure mode was a production default resting on an
-    unreconciled best-of-distribution number."""
-    import json
-
-    with open(os.path.join(REPO_ROOT, "BENCH.json")) as f:
-        verdict = json.load(f).get("headline_production_config")
-    assert verdict in ("bf16table", "bf16table_bf16scratch"), verdict
-    with open(os.path.join(REPO_ROOT, "bench.py")) as f:
-        body = f.read().split("def main", 1)[1]
-    assert 'table_dtype="bf16"' in body
-    uses_scratch = 'scratch_dtype="bf16"' in body
-    assert uses_scratch == (verdict == "bf16table_bf16scratch"), (
-        f"bench.py scratch knob ({'on' if uses_scratch else 'off'}) "
-        f"contradicts the measured verdict {verdict!r}"
-    )

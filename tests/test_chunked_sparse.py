@@ -1,4 +1,4 @@
-"""VMEM-chunked gather/densify vs direct oracles (ops/chunked_sparse.py).
+"""Chunked gather/densify vs direct oracles (ops/chunked_sparse.py).
 
 Covers: uniform ids, heavy skew (hot id repeated beyond the window ->
 exercises the exact fallback branch), pad-at-end, tiny windows, and the

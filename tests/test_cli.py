@@ -31,6 +31,15 @@ def test_config_rejects_unknown_keys():
         RunConfig.from_dict({"model": {"bogus": 1}})
 
 
+def test_config_rejects_use_pallas():
+    """The Pallas kernels and their switch are gone; an old config that
+    still sets it is refused rather than silently ignored."""
+    with pytest.raises(ValueError, match="use_pallas"):
+        RunConfig().apply_overrides(["model.use_pallas=true"])
+    with pytest.raises(ValueError, match="use_pallas"):
+        RunConfig.from_dict({"model": {"use_pallas": False}})
+
+
 def test_bundled_configs_parse():
     import glob
     import os

@@ -1,22 +1,16 @@
-"""Comm-volume accounting (parallel/comm.py) — the quantitative treatment
-of the >=85% 1->2-host scaling target (BASELINE.json:5, VERDICT r2 ask #4).
+"""Comm-volume accounting (parallel/comm.py): per-step exchanged bytes of
+the sharded step.
 
 The capacity formula is IMPORTED by the sharded step, so the accounting and
-execution cannot drift; these tests pin the volume algebra and the scaling
-model to the claims SCALING.md publishes.
+execution cannot drift; these tests pin the volume algebra that SCALING.md
+publishes.
 """
 
 import numpy as np
 
-from deepctr_tpu.data import ipinyou_full_schema, ipinyou_like_schema
-from deepctr_tpu.models import MlpSpec, make_fnn
+from deepctr_tpu.data import ipinyou_like_schema
 from deepctr_tpu.ops.split_embed import make_split_plan
-from deepctr_tpu.parallel import (
-    comm_volume,
-    dense_param_bytes,
-    exchange_capacity,
-    predict_scaling,
-)
+from deepctr_tpu.parallel import comm_volume, exchange_capacity
 
 
 def test_exchange_capacity_properties():
@@ -55,56 +49,3 @@ def test_comm_volume_algebra():
     assert v.a2a_wire == int(
         (v.ids_a2a + v.rows_a2a_fwd + v.rows_a2a_bwd) * (n - 1) / n
     )
-
-
-def test_scaling_prediction_headline_meets_target():
-    """Pin SCALING.md's central claims at the measured single-chip step time
-    (~2.84 ms at B=8192, BENCH.json):
-
-    - the DEFAULT config (cf=2.0, f32 exchange) predicts ~73% 2-host
-      efficiency with zero overlap assumed — below target, which is WHY the
-      knobs exist;
-    - the documented 2-host recipe (capacity_factor=1.25,
-      train.exchange_dtype=bf16) clears the >=85% target with zero overlap;
-    - single-host ICI scaling is essentially free either way.
-    """
-    schema = ipinyou_full_schema()
-    split = make_split_plan(schema)
-    model = make_fnn(schema, k=10, mlp=MlpSpec(hidden=(200, 300, 100)))
-    dense_bytes = dense_param_bytes(model, schema)
-    t_comp = 2.84
-
-    vol_default = comm_volume(schema, batch_per_device=8192, n_devices=16,
-                              capacity_factor=2.0, split=split,
-                              dense_param_bytes=dense_bytes)
-    pt_default = predict_scaling(vol_default, t_comp, n_hosts=2,
-                                 chips_per_host=8)
-    assert 0.65 <= pt_default.efficiency_no_overlap < 0.85, pt_default
-
-    vol_tuned = comm_volume(schema, batch_per_device=8192, n_devices=16,
-                            capacity_factor=1.25, split=split,
-                            dense_param_bytes=dense_bytes, exchange_bytes=2)
-    pt_tuned = predict_scaling(vol_tuned, t_comp, n_hosts=2, chips_per_host=8)
-    assert pt_tuned.efficiency_no_overlap >= 0.85, pt_tuned
-    assert pt_tuned.efficiency_overlapped >= 0.99, pt_tuned
-
-    vol8 = comm_volume(schema, batch_per_device=8192, n_devices=8,
-                       capacity_factor=2.0, split=split,
-                       dense_param_bytes=dense_bytes)
-    pt8 = predict_scaling(vol8, t_comp, n_hosts=1)
-    assert pt8.efficiency_no_overlap >= 0.95, pt8
-
-
-def test_scaling_efficiency_monotone_in_bandwidth_and_hosts():
-    schema = ipinyou_full_schema()
-    split = make_split_plan(schema)
-    vol = comm_volume(schema, batch_per_device=8192, n_devices=16,
-                      capacity_factor=2.0, split=split,
-                      dense_param_bytes=500_000)
-    a = predict_scaling(vol, 2.84, n_hosts=2, chips_per_host=8)
-    b = predict_scaling(vol, 2.84, n_hosts=2, chips_per_host=8,
-                        dcn_bytes_per_s_per_host=5e9)  # starved DCN
-    assert b.efficiency_no_overlap < a.efficiency_no_overlap
-    c = predict_scaling(vol, 2.84, n_hosts=1)
-    assert c.efficiency_no_overlap > a.efficiency_no_overlap
-    assert a.efficiency_overlapped >= a.efficiency_no_overlap

@@ -73,6 +73,26 @@ def test_scorer_quantization_accuracy(quantize, trained, tiny_schema_mod,
         assert abs(auc - auc_f32) < 0.01, (quantize, auc, auc_f32)
 
 
+@pytest.mark.parametrize("quantize", ["bf16", "int8"])
+def test_scorer_quantized_auc_within_parity_band(quantize, trained,
+                                                 tiny_schema_mod,
+                                                 tiny_dataset_mod):
+    """Serving quality at the parity standard: the bf16 and int8 table
+    layouts sit within |dAUC| <= 0.002 of the f32 scorer on held-out data
+    (chip_smoke.py holds the full-width checkpoint to the same band)."""
+    ds = tiny_dataset_mod
+    table = np.asarray(trained.table)
+    dense = {k: np.asarray(v) for k, v in trained.dense.items()}
+    aucs = {}
+    for mode in (None, quantize):
+        scorer = Scorer(model=FMModel(k=4), schema=tiny_schema_mod,
+                        table=table, dense=dense, quantize=mode,
+                        batch_size=512)
+        aucs[mode] = exact_auc(ds.labels[3000:], scorer.logits(ds.ids[3000:]))
+    assert aucs[None] > 0.6
+    assert abs(aucs[quantize] - aucs[None]) <= 0.002, aucs
+
+
 def test_int8_table_memory(trained, tiny_schema_mod):
     s = Scorer(
         model=FMModel(k=4),

@@ -102,7 +102,7 @@ def test_scan_chunked_fit_matches_per_step(tiny_schema, tiny_dataset):
 
 
 def test_bf16_table_trains_and_checkpoints(tiny_schema, tiny_dataset, tmp_path):
-    """table_dtype='bf16' (the HBM-bandwidth roofline knob): training reaches
+    """table_dtype='bf16' (the device-memory bandwidth knob): training reaches
     the same quality band as f32 (math stays f32 — only storage rounds), the
     Adagrad accumulator stays f32, and a bf16 checkpoint round-trips."""
     import optax

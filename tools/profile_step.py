@@ -20,7 +20,7 @@ from functools import partial
 B = 8192
 S = 16
 D = 11
-V = 937_670  # full-iPinYou-scale vocab (BENCH.md)
+V = 937_670  # full-iPinYou-scale vocab
 T = 8
 
 
